@@ -1,9 +1,9 @@
-// Native host-side IO runtime for x_multi_agent_tpu.
+// Native host-side IO runtime for x_multi_agent_jax.
 //
 // The reference is a C++ library fed by a ROS wrapper; here the host-side
 // data path (dataset streaming: IMU CSV parsing, PGM image decoding,
 // threaded batch prefetch) is native C++ behind a C ABI consumed via
-// ctypes. The TPU compute path stays JAX/XLA.
+// ctypes. The device compute path stays JAX/XLA.
 //
 // Build: see native/build.sh (g++ -O3 -shared -fPIC).
 

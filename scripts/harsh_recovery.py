@@ -55,7 +55,7 @@ def ensure_harsh_dataset(agent: int, duration: float, preset: str,
     cfg = PRESETS[preset]
     global HARSH_THERMAL, HARSH_MOTION
     HARSH_THERMAL, HARSH_MOTION = cfg["thermal"], cfg["motion"]
-    from x_multi_agent_tpu.utils import scene
+    from x_multi_agent_jax.utils import scene
 
     w_f = ar.DEG_GYRO_FACTOR if cheap_imu else 1.0
     a_f = ar.DEG_ACCEL_FACTOR if cheap_imu else 1.0
@@ -129,9 +129,9 @@ def main():
         tuple(int(x) for x in args.outage.split(":")) if args.outage else None
     )
 
-    import bench
+    from x_multi_agent_jax.utils import compile_cache
 
-    bench._enable_compile_cache()
+    compile_cache.enable()
 
     report = dict(settings={}, results={})
     for preset in args.presets.split(","):

@@ -36,11 +36,11 @@ def main():
     ap.add_argument("--modes", type=str, default="off,global,spatial")
     args = ap.parse_args()
 
-    import bench
+    from x_multi_agent_jax.utils import compile_cache
 
-    bench._enable_compile_cache()
+    compile_cache.enable()
 
-    from x_multi_agent_tpu.utils import scene
+    from x_multi_agent_jax.utils import scene
 
     thermal = dict(
         drift_a=0.0, drift_b=0.0, noise=args.noise, vignette=args.vignette

@@ -1,23 +1,25 @@
-"""Verify-skill surface #1: drive the VIO facade on the real TPU chip
-(float32 production path), including the debug/observability path."""
+"""Drive the VIO facade in float32 (the production dtype) on whatever
+device JAX finds, including the debug/observability path. Prints per-frame
+error and NaN flags and runs the drop probes and debug accessors.
+
+    python scripts/verify_drive.py
+"""
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/xmat_jax_cache")
-
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/xmat_jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from x_multi_agent_jax.utils import compile_cache
 
-from x_multi_agent_tpu.utils.sim import make_circle_sim
-from x_multi_agent_tpu.vio import vio as vio_mod, track_manager as tm
+compile_cache.enable()
+
+from x_multi_agent_jax.utils.sim import make_circle_sim
+from x_multi_agent_jax.vio import vio as vio_mod, track_manager as tm
 from test_vio_e2e import PARAMS, TRACKS
 
 print("devices:", jax.devices())

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from x_multi_agent_tpu.ekf.state import StateDims
-from x_multi_agent_tpu.vio.range_facet import feature_triangle_at_point
-from x_multi_agent_tpu.vio.updates import range as range_upd
-from x_multi_agent_tpu.vio.updates import solar
-from x_multi_agent_tpu.ops import lie
+from x_multi_agent_jax.ekf.state import StateDims
+from x_multi_agent_jax.vio.range_facet import feature_triangle_at_point
+from x_multi_agent_jax.vio.updates import range as range_upd
+from x_multi_agent_jax.vio.updates import solar
+from x_multi_agent_jax.ops import lie
 
 DIMS = StateDims(n_poses=5, n_features=6, buffer_size=16)
 

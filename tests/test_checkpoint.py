@@ -3,11 +3,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from x_multi_agent_tpu.utils import checkpoint
-from x_multi_agent_tpu.utils.sim import make_circle_sim
-from x_multi_agent_tpu.vio import track_manager as tm
+from x_multi_agent_jax.utils import checkpoint
+from x_multi_agent_jax.utils.sim import make_circle_sim
+from x_multi_agent_jax.vio import track_manager as tm
 from tests.test_vio_e2e import PARAMS, TRACKS
-from x_multi_agent_tpu.vio import vio as vio_mod
+from x_multi_agent_jax.vio import vio as vio_mod
 
 
 def test_checkpoint_resume_bit_identical(tmp_path, rng):

@@ -7,7 +7,7 @@ device. Oracle: scipy scalar optimization for the 2-matrix case.
 import numpy as np
 import jax.numpy as jnp
 
-from x_multi_agent_tpu.ekf import ci as ci_mod
+from x_multi_agent_jax.ekf import ci as ci_mod
 
 
 def _info(rng, d, scales):

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from x_multi_agent_tpu.ekf.state import StateDims
-from x_multi_agent_tpu.parallel import collab
-from x_multi_agent_tpu.place_recognition.gt_matching import match_landmarks
-from x_multi_agent_tpu.vio import pipeline, vio as vio_mod
-from x_multi_agent_tpu.vio import track_manager as tm
-from x_multi_agent_tpu.utils.sim import make_circle_sim
+from x_multi_agent_jax.ekf.state import StateDims
+from x_multi_agent_jax.parallel import collab
+from x_multi_agent_jax.place_recognition.gt_matching import match_landmarks
+from x_multi_agent_jax.vio import pipeline, vio as vio_mod
+from x_multi_agent_jax.vio import track_manager as tm
+from x_multi_agent_jax.utils.sim import make_circle_sim
 
 DIMS = StateDims(n_poses=8, n_features=8, buffer_size=64)
 TRACKS = tm.TrackDims(
@@ -94,7 +94,7 @@ def test_two_agent_joint_msckf_ci_round(rng):
     true_p = sim.cam_p[-1]
 
     def pos_err(fs):
-        from x_multi_agent_tpu.ekf import ekf as ekf_mod
+        from x_multi_agent_jax.ekf import ekf as ekf_mod
         return np.linalg.norm(np.array(ekf_mod.tail_core(fs).p) - true_p)
 
     err_before = pos_err(vb.fs)
@@ -120,7 +120,7 @@ def test_sharded_collab_round_matches_vmap():
     """The mesh-sharded exchange round (all_gather of payloads over the
     ``agents`` axis + local CI fusion, SURVEY §5.8) must equal the
     single-chip vmap round bit-for-bit on the virtual CPU mesh."""
-    from x_multi_agent_tpu.parallel import mesh as pmesh
+    from x_multi_agent_jax.parallel import mesh as pmesh
 
     va, _ = run_agent((0.0, 0.0, 0.0), 1e-3)
     vb, _ = run_agent((0.25, 0.0, 0.0), 0.5)

@@ -4,7 +4,7 @@ agent's full-trajectory ATE must drop substantially once periodic
 exchange rounds run, and the helper agent must stay accurate."""
 import pytest
 
-from x_multi_agent_tpu.utils.collab_eval import run_collab_gain
+from x_multi_agent_jax.utils.collab_eval import run_collab_gain
 from tests.test_collab import PARAMS, CCFG
 
 

@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from x_multi_agent_tpu.utils import dataio
+from x_multi_agent_jax.utils import dataio
 
 
 @pytest.fixture

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 from scipy.linalg import expm
 from scipy.spatial.transform import Rotation
 
-from x_multi_agent_tpu.ekf import ekf as ekf_mod
-from x_multi_agent_tpu.ekf import propagator
-from x_multi_agent_tpu.ekf.state import CoreState, StateDims, VisionState
+from x_multi_agent_jax.ekf import ekf as ekf_mod
+from x_multi_agent_jax.ekf import propagator
+from x_multi_agent_jax.ekf.state import CoreState, StateDims, VisionState
 
 DIMS = StateDims(n_poses=2, n_features=1, buffer_size=16)
 PARAMS = ekf_mod.EkfParams(dims=DIMS, max_update_lag=8)
@@ -90,7 +90,7 @@ def test_covariance_propagation_matches_dense_oracle(rng):
     fs2, applied = ekf_mod.process_update(PARAMS, fs, times[-1], update_fn)
     assert bool(applied)
     np.testing.assert_allclose(np.array(fs2.cov), p_ref, rtol=1e-9, atol=1e-15)
-    from x_multi_agent_tpu.ekf import buffer as rb_mod
+    from x_multi_agent_jax.ekf import buffer as rb_mod
     core_m = rb_mod.get_slot(fs2.buffer, int(fs2.anchor_buf_idx))
     np.testing.assert_allclose(np.array(core_m.p), np.array(core.p), atol=1e-12)
 
@@ -109,9 +109,9 @@ def test_update_and_repropagation(rng):
         sigma = 0.01
         hw = h / sigma
         resw = (z - core.p) / sigma
-        from x_multi_agent_tpu.ops import linalg
+        from x_multi_agent_jax.ops import linalg
         corr, cov1 = linalg.kalman_update(cov, hw, resw, jnp.zeros(d))
-        from x_multi_agent_tpu.ekf.state import correct_core, correct_vision
+        from x_multi_agent_jax.ekf.state import correct_core, correct_vision
         return correct_core(core, corr), correct_vision(vision, corr, DIMS), cov1
 
     fs2, applied = ekf_mod.process_update(PARAMS, fs, t_meas, update_fn)
@@ -119,7 +119,7 @@ def test_update_and_repropagation(rng):
     # anchor moved to the measurement slot
     assert float(fs2.buffer[fs2.anchor_buf_idx, 0]) == t_meas
     # the corrected position pulled most of the way to z (tight prior noise)
-    from x_multi_agent_tpu.ekf import buffer as rb_mod
+    from x_multi_agent_jax.ekf import buffer as rb_mod
     core_m = rb_mod.get_slot(fs2.buffer, int(fs2.anchor_buf_idx))
     np.testing.assert_allclose(np.array(core_m.p), np.array(z), atol=2e-2)
     # tail was repropagated: stationary IMU keeps the corrected offset

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from x_multi_agent_tpu.ekf.state import StateDims, VisionState
-from x_multi_agent_tpu.vio import state_manager as sm
+from x_multi_agent_jax.ekf.state import StateDims, VisionState
+from x_multi_agent_jax.vio import state_manager as sm
 
 SIG_IMG = 0.007
 RHO0 = 0.43

@@ -10,10 +10,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from x_multi_agent_tpu.ekf.state import StateDims
-from x_multi_agent_tpu.vio import pipeline, vio as vio_mod
-from x_multi_agent_tpu.vio import track_manager as tm
-from x_multi_agent_tpu.utils.sim import make_circle_sim
+from x_multi_agent_jax.ekf.state import StateDims
+from x_multi_agent_jax.vio import pipeline, vio as vio_mod
+from x_multi_agent_jax.vio import track_manager as tm
+from x_multi_agent_jax.utils.sim import make_circle_sim
 
 DIMS = StateDims(n_poses=8, n_features=8, buffer_size=64)
 TRACKS = tm.TrackDims(

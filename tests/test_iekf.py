@@ -17,11 +17,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from x_multi_agent_tpu.ekf import buffer as rb, ekf as ekf_mod
-from x_multi_agent_tpu.utils.sim import make_circle_sim
-from x_multi_agent_tpu.vio import pipeline
-from x_multi_agent_tpu.vio import track_manager as tm
-from x_multi_agent_tpu.vio import vio as vio_mod
+from x_multi_agent_jax.ekf import buffer as rb, ekf as ekf_mod
+from x_multi_agent_jax.utils.sim import make_circle_sim
+from x_multi_agent_jax.vio import pipeline
+from x_multi_agent_jax.vio import track_manager as tm
+from x_multi_agent_jax.vio import vio as vio_mod
 from tests.test_vio_e2e import PARAMS, TRACKS
 
 

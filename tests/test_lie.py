@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from x_multi_agent_tpu.ops import lie
+from x_multi_agent_jax.ops import lie
 
 
 def random_quats(rng, n):

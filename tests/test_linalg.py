@@ -7,7 +7,7 @@ corrections and covariance updates (up to factorization roundoff).
 import jax.numpy as jnp
 import numpy as np
 
-from x_multi_agent_tpu.ops import linalg
+from x_multi_agent_jax.ops import linalg
 
 
 def _system(rng, r, d, zero_cols=(), zero_row_frac=0.3):

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from x_multi_agent_tpu.ekf.state import StateDims, VisionState
-from x_multi_agent_tpu.parallel import collab, match_store as ms
-from x_multi_agent_tpu.parallel.payload import make_payload
-from x_multi_agent_tpu.vio import track_manager as tm
+from x_multi_agent_jax.ekf.state import StateDims, VisionState
+from x_multi_agent_jax.parallel import collab, match_store as ms
+from x_multi_agent_jax.parallel.payload import make_payload
+from x_multi_agent_jax.vio import track_manager as tm
 
 from tests.test_collab import CCFG, PARAMS, TRACKS, DIMS, run_agent
 
@@ -193,14 +193,14 @@ def test_two_agent_store_roundtrip(rng):
 def make_more_frames(vb, sim, t0, desc_table, ccfg, store):
     """Drive ~13 more frames of agent B via visual_update_with_store
     (the opp->MSCKF maturation cycle is ~7 frames; 13 guarantees one)."""
-    from x_multi_agent_tpu.utils.sim import make_circle_sim
+    from x_multi_agent_jax.utils.sim import make_circle_sim
 
     sim2 = make_circle_sim(
         duration=sim.cam_t[-1] + 1.3, imu_rate=100.0, cam_rate=10.0,
         n_landmarks=30, match_budget=TRACKS.n_matches, pixel_noise=5e-4,
         seed=1,
     )
-    from x_multi_agent_tpu.vio import pipeline
+    from x_multi_agent_jax.vio import pipeline
 
     n_total = 0
     mask_new = sim2.imu_t > t0 + 1e-9

@@ -14,9 +14,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from x_multi_agent_tpu.parallel import collab
-from x_multi_agent_tpu.place_recognition import database as db_mod
-from x_multi_agent_tpu.place_recognition.vocabulary import train_kmajority
+from x_multi_agent_jax.parallel import collab
+from x_multi_agent_jax.place_recognition import database as db_mod
+from x_multi_agent_jax.place_recognition.vocabulary import train_kmajority
 
 from tests.test_collab import PARAMS, CCFG, run_agent
 
@@ -69,7 +69,7 @@ def test_sharded_desc_round_matches_single_chip():
         PARAMS, ccfg, words, fs_stack, slots_stack, db_stack
     )
 
-    from x_multi_agent_tpu.parallel import mesh as pmesh
+    from x_multi_agent_jax.parallel import mesh as pmesh
 
     mesh = pmesh.make_agent_mesh(jax.devices()[:2])
     round_fn = pmesh.sharded_collab_round_desc(PARAMS, ccfg, words, mesh)

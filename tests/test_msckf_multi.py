@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from x_multi_agent_tpu.ekf.state import CoreState, StateDims, VisionState
-from x_multi_agent_tpu.vio.updates import msckf_multi
+from x_multi_agent_jax.ekf.state import CoreState, StateDims, VisionState
+from x_multi_agent_jax.vio.updates import msckf_multi
 
 DIMS = StateDims(n_poses=6, n_features=4, buffer_size=16)
 M, N = DIMS.n_poses, DIMS.n_features

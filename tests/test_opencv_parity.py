@@ -11,8 +11,8 @@ cv2 = pytest.importorskip("cv2")
 
 import jax.numpy as jnp
 
-from x_multi_agent_tpu.vision import fast, lk
-from x_multi_agent_tpu.vision.image import build_pyramid
+from x_multi_agent_jax.vision import fast, lk
+from x_multi_agent_jax.vision.image import build_pyramid
 
 
 def _textured(rng, h=240, w=320):

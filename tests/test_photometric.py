@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from x_multi_agent_tpu.photometric import calib
+from x_multi_agent_jax.photometric import calib
 
 
 def test_gain_algebra_roundtrip(rng):

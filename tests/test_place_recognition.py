@@ -8,14 +8,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from x_multi_agent_tpu.place_recognition import database as db_mod
-from x_multi_agent_tpu.place_recognition import descriptors as desc_mod
-from x_multi_agent_tpu.place_recognition.vlad import compute_vlad, vlad_score
-from x_multi_agent_tpu.place_recognition.vocabulary import (
+from x_multi_agent_jax.place_recognition import database as db_mod
+from x_multi_agent_jax.place_recognition import descriptors as desc_mod
+from x_multi_agent_jax.place_recognition.vlad import compute_vlad, vlad_score
+from x_multi_agent_jax.place_recognition.vocabulary import (
     Vocabulary, load_dbow3, train_kmajority, transform,
 )
-from x_multi_agent_tpu.parallel import collab
-from x_multi_agent_tpu.vio import track_manager as tm
+from x_multi_agent_jax.parallel import collab
+from x_multi_agent_jax.vio import track_manager as tm
 
 REF_VOC = "/root/reference/Vocabulary/thermal_voc_3_4_dbow3_calib.yaml"
 
@@ -86,7 +86,7 @@ def test_knn2_matching(rng):
 
 def test_descriptor_rotation_invariance(rng):
     """Steered BRIEF must be stable under in-plane rotation of the patch."""
-    from x_multi_agent_tpu.vision.image import bilinear_sample
+    from x_multi_agent_jax.vision.image import bilinear_sample
     from tests.test_vision import synth_image
 
     img = synth_image(rng, 96, 96, n_blobs=25)
@@ -124,8 +124,8 @@ def test_request_response_two_agents(rng):
     words = jnp.asarray(train_kmajority(rand_desc(rng, 400), 16, 5).words)
 
     def run_with_desc(offset, sigma_dp, seed=1):
-        from x_multi_agent_tpu.utils.sim import make_circle_sim
-        from x_multi_agent_tpu.vio import vio as vio_mod
+        from x_multi_agent_jax.utils.sim import make_circle_sim
+        from x_multi_agent_jax.vio import vio as vio_mod
 
         sim = make_circle_sim(
             duration=3.0, imu_rate=100.0, cam_rate=10.0, n_landmarks=30,
@@ -185,7 +185,7 @@ def test_request_response_two_agents(rng):
     assert not hits[0, 1], "A should get nothing from B's empty DB"
 
     fs_b = jax.tree.map(lambda x: x[1], fs_stack)
-    from x_multi_agent_tpu.ekf import ekf as ekf_mod
+    from x_multi_agent_jax.ekf import ekf as ekf_mod
     err_after = np.linalg.norm(np.array(ekf_mod.tail_core(fs_b).p) - true_p)
     assert err_after < 0.7 * err_before, (err_before, err_after, np.array(n_matches))
 
@@ -195,7 +195,7 @@ def test_hierarchical_vocabulary_training(rng):
     = words) + greedy tree-walk quantization: on well-separated clustered
     descriptors the tree walk must agree with the exact flat argmin over
     the leaf table."""
-    from x_multi_agent_tpu.place_recognition import vocabulary as v
+    from x_multi_agent_jax.place_recognition import vocabulary as v
 
     base = rng.integers(0, 256, (20, 32)).astype(np.uint8)
     descs = np.repeat(base, 40, axis=0)

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 from scipy.linalg import expm
 
-from x_multi_agent_tpu.ekf import propagator
-from x_multi_agent_tpu.ekf.state import CoreState
-from x_multi_agent_tpu.ops import lie
+from x_multi_agent_jax.ekf import propagator
+from x_multi_agent_jax.ekf.state import CoreState
+from x_multi_agent_jax.ops import lie
 
 G = np.array([0.0, 0.0, -9.81])
 

@@ -14,10 +14,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from x_multi_agent_tpu.utils import ref_ingest
-from x_multi_agent_tpu.utils.sim import make_circle_sim
-from x_multi_agent_tpu.vision import camera as cam_mod
-from x_multi_agent_tpu.vio import vio as vio_mod
+from x_multi_agent_jax.utils import ref_ingest
+from x_multi_agent_jax.utils.sim import make_circle_sim
+from x_multi_agent_jax.vision import camera as cam_mod
+from x_multi_agent_jax.vio import vio as vio_mod
 
 from tests.test_vio_e2e import PARAMS, TRACKS
 

@@ -4,10 +4,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from x_multi_agent_tpu.utils import render
-from x_multi_agent_tpu.vio import pipeline, vio as vio_mod
-from x_multi_agent_tpu.vio import track_manager as tm
-from x_multi_agent_tpu.utils.sim import make_circle_sim
+from x_multi_agent_jax.utils import render
+from x_multi_agent_jax.vio import pipeline, vio as vio_mod
+from x_multi_agent_jax.vio import track_manager as tm
+from x_multi_agent_jax.utils.sim import make_circle_sim
 
 from test_vio_e2e import PARAMS, TRACKS
 
@@ -101,7 +101,7 @@ def test_frame_debug_and_accessors():
 
     # rendering produces class colors on the canvas
     img = np.zeros((480, 640), np.uint8)
-    from x_multi_agent_tpu.vision.camera import Camera
+    from x_multi_agent_jax.vision.camera import Camera
 
     cam = Camera.from_fractional(0.8, 0.8 * 640 / 480, 0.5, 0.5, 0.0, 640, 480)
     canvas = v.render_debug_image(img, cam)

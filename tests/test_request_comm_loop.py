@@ -7,10 +7,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from x_multi_agent_tpu.parallel import collab
-from x_multi_agent_tpu.place_recognition.vocabulary import train_kmajority
-from x_multi_agent_tpu.utils.sim import make_circle_sim
-from x_multi_agent_tpu.vio import track_manager as tm, vio as vio_mod
+from x_multi_agent_jax.parallel import collab
+from x_multi_agent_jax.place_recognition.vocabulary import train_kmajority
+from x_multi_agent_jax.utils.sim import make_circle_sim
+from x_multi_agent_jax.vio import track_manager as tm, vio as vio_mod
 
 from tests.test_collab import PARAMS, TRACKS
 

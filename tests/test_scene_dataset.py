@@ -4,7 +4,7 @@ import os
 
 import numpy as np
 
-from x_multi_agent_tpu.utils import dataio, scene
+from x_multi_agent_jax.utils import dataio, scene
 
 
 def test_dataset_roundtrip(tmp_path, rng):

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from x_multi_agent_tpu.vio import track_manager as tm
+from x_multi_agent_jax.vio import track_manager as tm
 
 
 def oracle_spread(n_bins, slam_tile, slam_alive, cand_tile, cand_valid, free):

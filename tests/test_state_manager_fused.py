@@ -5,8 +5,8 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from x_multi_agent_tpu.ekf.state import CoreState, StateDims, VisionState
-from x_multi_agent_tpu.vio import state_manager as sm
+from x_multi_agent_jax.ekf.state import CoreState, StateDims, VisionState
+from x_multi_agent_jax.vio import state_manager as sm
 
 DIMS = StateDims(n_poses=6, n_features=5, buffer_size=16)
 

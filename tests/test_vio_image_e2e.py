@@ -5,11 +5,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from x_multi_agent_tpu.ekf.state import StateDims
-from x_multi_agent_tpu.vio import pipeline, vio as vio_mod
-from x_multi_agent_tpu.vio import track_manager as tm
-from x_multi_agent_tpu.vision import camera as cam_mod
-from x_multi_agent_tpu.vision import tracker as trk_mod
+from x_multi_agent_jax.ekf.state import StateDims
+from x_multi_agent_jax.vio import pipeline, vio as vio_mod
+from x_multi_agent_jax.vio import track_manager as tm
+from x_multi_agent_jax.vision import camera as cam_mod
+from x_multi_agent_jax.vision import tracker as trk_mod
 
 H, W = 96, 128
 FX = FY = 110.0

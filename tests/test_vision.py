@@ -2,10 +2,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from x_multi_agent_tpu.vision import camera as cam_mod
-from x_multi_agent_tpu.vision import fast, lk, tracker
-from x_multi_agent_tpu.vision.image import build_pyramid, bilinear_sample
-from x_multi_agent_tpu.ops.ransac import fundamental_ransac, sampson_dist
+from x_multi_agent_jax.vision import camera as cam_mod
+from x_multi_agent_jax.vision import fast, lk, tracker
+from x_multi_agent_jax.vision.image import build_pyramid, bilinear_sample
+from x_multi_agent_jax.ops.ransac import fundamental_ransac, sampson_dist
 
 
 def synth_image(rng, h=96, w=128, n_blobs=30):
